@@ -47,14 +47,20 @@ from weiner_slamit_v2_tpu.parallel.sharded_ba import (
     make_ba_mesh, shard_problem, solve_ba_sharded)
 
 prob, gt_poses, X_gt = make_ba_problem(n_cams=4, n_pts=64, max_obs=6, seed=0)
+# gross outliers on a few observations: the final cost is then defined over
+# more than the inlier set, in both solvers alike
+prob = prob.replace(obs_uv=prob.obs_uv.at[::9, 0].add(40.0))
 res_local = solve_ba(prob, 3, 3)
 mesh = make_ba_mesh(jax.devices())
 prob_s = shard_problem(prob, mesh)
 res_shard = solve_ba_sharded(prob_s, mesh, iters1=3, iters2=3)
 dp = float(jnp.abs(res_local.cam_pose - res_shard.cam_pose).max())
 dx = float(jnp.abs(res_local.points - res_shard.points).max())
-print("MAXDIFF", dp, dx)
-assert dp < 1e-3 and dx < 1e-2, (dp, dx)
+dc = abs(float(res_local.final_cost) - float(res_shard.final_cost))
+dc /= float(res_local.final_cost)
+di = int((res_local.obs_inlier != res_shard.obs_inlier).sum())
+print("MAXDIFF", dp, dx, dc, di)
+assert dp < 1e-3 and dx < 1e-2 and dc < 1e-4 and di == 0, (dp, dx, dc, di)
 print("OK")
 """ % (REPO,)
         out = run_in_subprocess(code, n_devices=2)

@@ -1,5 +1,5 @@
 """Micro-profile solve_ba internals on a synthetic problem with the bench's
-local-BA shapes (C=32, P=2048, O=32). Honest sync timing (PLATFORM.md §1)."""
+local-BA shapes (C=32, P=2048, O=32). Timed to finished results (block_until_ready)."""
 
 import os
 import sys

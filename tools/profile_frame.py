@@ -2,7 +2,7 @@
 
 Runs the bench sequence through System, then times (a) the whole
 track_monocular call per frame (median/p90), (b) the extract dispatch alone,
-(c) the fused _track_step alone, with honest sync timing (PLATFORM.md §1).
+(c) the fused _track_step alone, each timed to finished results.
 """
 
 import os

@@ -12,12 +12,12 @@ TIMED_FRAMES = 100
 
 
 def main():
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import numpy as np
+
+    from weiner_slamit_v2_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from weiner_slamit_v2_tpu.config import (
         CameraConfig, OrbConfig, SlamConfig, TrackingConfig,

@@ -3,7 +3,7 @@
 Builds a representative map by running the bench sequence through the real
 System for ~40 frames, snapshots the map right before a keyframe's mapping
 pass, then times each mapping_step stage as its own jit program with honest
-sync timing (readback-poisoned first — PLATFORM.md §1).
+sync timing (each stage timed to a finished readback).
 
 Usage: python tools/profile_mapping.py [--frames 40]
 """

@@ -2,7 +2,7 @@
 
 Builds steady-state session state (55 frames through the real System), then
 times the stage functions as standalone jit programs on the live inputs:
-N dispatches + one sync, minus the sync constant (PLATFORM.md §1).
+N dispatches + one sync, minus the cost of a bare sync.
 """
 
 import os

@@ -1,4 +1,4 @@
-"""weiner_slamit_v2_tpu: a TPU-native visual SLAM framework (JAX/XLA/Pallas).
+"""weiner_slamit_v2_tpu: a visual SLAM framework in JAX/XLA.
 
 Brand-new implementation of the capability set of the reference
 (serviceberry3/weiner_slamit_v2, an Android ORB-SLAM2 fork) — see SURVEY.md.
@@ -6,9 +6,10 @@ Brand-new implementation of the capability set of the reference
 
 import jax as _jax
 
-# Geometry/BA numerics need true f32 matmuls on TPU (the default bf16-in-f32
-# matmul precision breaks pose-optimization conditioning). Kernels that can
-# tolerate bf16 opt in explicitly via lax precision arguments.
+# Geometry/BA numerics need true f32 matmuls: at the default precision an
+# f32 product on an NVIDIA GPU may run in TF32 (10-bit mantissa, about three
+# decimal digits), which breaks pose-optimization conditioning. Kernels that
+# can tolerate lower precision opt in explicitly via lax precision arguments.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from . import config, geometry, io  # noqa: F401, E402

@@ -1,6 +1,6 @@
 """Keyframe recognition database: BoW scoring over all keyframes.
 
-TPU-native replacement for ``KeyFrameDatabase``
+JAX replacement for ``KeyFrameDatabase``
 (jni/ORB_SLAM2/src/KeyFrameDatabase.cc): the reference keeps an inverted
 file (word -> list of keyframes) and walks it per query. With a 10k-word
 vocabulary and dense per-keyframe BoW rows, the whole candidate search is a
@@ -16,14 +16,14 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from ..utils import struct
 from .vocabulary import Vocabulary, bow_vector, l1_score, transform
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class KeyframeDatabase:
     bow: jnp.ndarray       # (K, W) f32 — L1-normalized tf-idf row per keyframe
     has_entry: jnp.ndarray  # (K,) bool
@@ -123,7 +123,7 @@ def _gate_candidates(
 # ---------------------------------------------------------------------------
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class SparseKeyframeDatabase:
     wid: jnp.ndarray       # (K, S) int32 word ids, -1 padding
     wt: jnp.ndarray        # (K, S) f32 L1-normalized tf-idf weights

@@ -1,6 +1,6 @@
 """Visual vocabulary: hierarchical binary k-means, batched tree descent.
 
-TPU-native replacement for DBoW2's ``TemplatedVocabulary``
+JAX replacement for DBoW2's ``TemplatedVocabulary``
 (jni/Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h): the reference ships a
 pre-trained k=10, L=6 tree parsed from ORBvoc.txt (~1.08M nodes) and descends
 one descriptor at a time (TemplatedVocabulary.h:1225-1266). Here:
@@ -27,21 +27,22 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..utils import struct
 
-@flax.struct.dataclass
+
+@struct.dataclass
 class Vocabulary:
     """Implicit complete K-ary tree of binary descriptor centroids."""
 
     level_desc: tuple  # tuple of (K^(l+1), 8) uint32 arrays, l = 0..L-1
     level_valid: tuple  # tuple of (K^(l+1),) bool — node actually trained
     word_idf: jnp.ndarray  # (K^L,) f32 idf weight per leaf word
-    branching: int = flax.struct.field(pytree_node=False, default=10)
-    depth: int = flax.struct.field(pytree_node=False, default=4)
+    branching: int = struct.field(static=True, default=10)
+    depth: int = struct.field(static=True, default=4)
 
     @property
     def n_words(self) -> int:

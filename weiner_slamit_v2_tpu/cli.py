@@ -20,7 +20,7 @@ import time
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="TPU-native visual SLAM runner")
+    p = argparse.ArgumentParser(description="visual SLAM runner")
     p.add_argument("--dataset", choices=["tum", "kitti", "euroc", "synthetic"],
                    default="synthetic")
     p.add_argument("--root", help="dataset root directory")

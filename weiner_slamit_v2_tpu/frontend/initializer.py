@@ -1,6 +1,6 @@
 """Monocular two-view bootstrap: parallel H/F RANSAC + model select + SfM.
 
-TPU-native replacement for ``Initializer`` (jni/ORB_SLAM2/src/Initializer.cc).
+JAX replacement for ``Initializer`` (jni/ORB_SLAM2/src/Initializer.cc).
 The reference runs two std::threads, each looping 200 RANSAC iterations with
 scalar 8-point solves; here both models' 200 hypotheses are two vmapped
 batches of small SVD solves evaluated in one shot, and the winner is chosen
@@ -16,11 +16,11 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from ..geometry import se3, triangulate
+from ..utils import struct
 
 N_RANSAC = 200        # Initializer.cc:86-106
 SAMPLE_SIZE = 8
@@ -34,7 +34,7 @@ MIN_TRIANGULATED = 50
 CHECK_RT_TH2 = 4.0    # reprojection gate 4*sigma^2 (Initializer.cc:866-910)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class InitResult:
     success: jnp.ndarray        # () bool
     Tcw2: jnp.ndarray           # (4, 4) pose of frame 2 (frame 1 = identity)

@@ -1,11 +1,12 @@
 """Descriptor matching as masked batched reductions.
 
-TPU-native replacement for ``ORBmatcher`` (jni/ORB_SLAM2/src/ORBmatcher.cc).
-Every reference routine is a scalar loop over keypoints with a grid lookup
-(Frame::GetFeaturesInArea); here each becomes one masked N1 x N2 Hamming
-matrix + argmin/ratio/rotation-histogram reductions. The 64x48 feature grid
-is unnecessary on TPU: the full masked distance matrix (1024^2 x 8 uint32
-XORs) is a few microseconds of VPU work and fuses with the window masks.
+JAX replacement for ``ORBmatcher``
+(jni/ORB_SLAM2/src/ORBmatcher.cc). Every reference routine is a scalar loop
+over keypoints with a grid lookup (Frame::GetFeaturesInArea); here each
+becomes one masked N1 x N2 Hamming matrix + argmin/ratio/rotation-histogram
+reductions. The 64x48 feature grid is not needed: the full masked distance
+matrix (1024^2 x 8 uint32 XORs) is one elementwise+reduce program into which
+XLA fuses the window masks.
 
 Thresholds follow the reference exactly: TH_LOW=50, TH_HIGH=100,
 HISTO_LENGTH=30, per-call-site NN ratios (SURVEY.md Appendix A, Matching).
@@ -21,15 +22,6 @@ from ..ops.hamming import INVALID_DIST
 TH_LOW = 50       # ORBmatcher.cc:37
 TH_HIGH = 100     # ORBmatcher.cc:38
 HISTO_LENGTH = 30  # ORBmatcher.cc:39
-
-
-def _pallas_matcher_enabled() -> bool:
-    """Fused Pallas tile matcher on real TPU backends; the CPU test path
-    keeps the XLA reference implementation (bit-identical results — the
-    kernel is verified against it in tests/test_pallas.py)."""
-    from ..ops.fast_pallas import use_pallas_default
-
-    return use_pallas_default()
 
 
 def rotation_consistency_mask(
@@ -97,11 +89,6 @@ def match_with_window(
     n1 = desc1.shape[0]
     window = jnp.broadcast_to(jnp.asarray(window, dtype=jnp.float32), (n1,))
 
-    # NOTE: a fused Pallas tile variant exists (ops/match_pallas.py) and is
-    # used by the mapping fuse stage, where it measures ~3x on-device; inside
-    # the fused tracking scan XLA already fuses these gates with surrounding
-    # work and the kernel measured NO end-to-end gain (bench 36.6 -> 35.2),
-    # so the hot path keeps the XLA form.
     dxy = jnp.abs(xy2[None, :, :] - pred_xy[:, None, :])  # (N1, N2, 2)
     in_window = (
         (dxy[..., 0] < window[:, None]) & (dxy[..., 1] < window[:, None])
@@ -160,6 +147,41 @@ def _column_unique_best(
     return ok & is_min & (col_row[idx] == rows)
 
 
+def windowed_best2(
+    desc1: jnp.ndarray,
+    desc2: jnp.ndarray,
+    valid1: jnp.ndarray,
+    valid2: jnp.ndarray,
+    pred_xy: jnp.ndarray,
+    xy2: jnp.ndarray,
+    window: jnp.ndarray,
+    oct_lo: jnp.ndarray,
+    oct_hi: jnp.ndarray,
+    octave2: jnp.ndarray,
+    chi2_w: jnp.ndarray,
+    chi2_th: float,
+) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
+    """Gated best/second-best search of ORBmatcher::Fuse
+    (src/ORBmatcher.cc:888-975): for each row i of set 1, the columns j of
+    set 2 inside the box |xy2[j] - pred_xy[i]|_inf < window[i], with
+    octave2[j] in [oct_lo[i], oct_hi[i]] and
+    |xy2[j] - pred_xy[i]|^2 * chi2_w[j] <= chi2_th (zero weights disable
+    that gate).
+
+    Returns (best_idx, best_dist, second_dist), each (N1,) int32;
+    best_dist == INVALID_DIST means no gated candidate.
+    """
+    du = xy2[None, :, 0] - pred_xy[:, 0, None]
+    dv = xy2[None, :, 1] - pred_xy[:, 1, None]
+    pair = (jnp.abs(du) < window[:, None]) & (jnp.abs(dv) < window[:, None])
+    pair = pair & (octave2[None, :] >= oct_lo[:, None]) & (
+        octave2[None, :] <= oct_hi[:, None]
+    )
+    pair = pair & ((du * du + dv * dv) * chi2_w[None, :] <= chi2_th)
+    dist = hamming.masked_distance_matrix(desc1, desc2, valid1, valid2, pair)
+    return hamming.best_and_second(dist)
+
+
 def search_for_initialization(
     feats1,
     feats2,
@@ -206,8 +228,8 @@ def match_by_descriptor(
     histo_bins: int = HISTO_LENGTH,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Unwindowed brute-force matching with ratio test (the array equivalent
-    of SearchByBoW's within-vocabulary-node brute force — on TPU the full
-    matrix is cheaper than the node bucketing). The optional angle pair
+    of SearchByBoW's within-vocabulary-node brute force — as one dense
+    program the full matrix replaces the node bucketing). The optional angle pair
     enables the rotation-histogram consistency filter the reference applies
     in SearchByBoW (mbCheckOrientation, ORBmatcher.cc:161-292)."""
     dist = hamming.masked_distance_matrix(desc1, desc2, valid1, valid2)

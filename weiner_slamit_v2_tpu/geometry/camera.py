@@ -1,6 +1,6 @@
 """Pinhole camera model with radial-tangential distortion (batched jnp).
 
-TPU-native replacement for the reference's scattered intrinsics handling:
+JAX replacement for the reference's scattered intrinsics handling:
 hardcoded fx/fy/cx/cy + 5 distortion coefficients in Tracking
 (jni/ORB_SLAM2/src/Tracking.cc:76-105) plus OpenCV's ``undistortPoints``
 (jni/ORB_SLAM2/src/Frame.cc:529-559) and the per-frame projection math
@@ -10,11 +10,12 @@ single immutable struct with batched project/unproject/undistort ops.
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 
+from ..utils import struct
 
-@flax.struct.dataclass
+
+@struct.dataclass
 class Camera:
     """Pinhole + radtan (k1, k2, p1, p2, k3) camera.
 
@@ -31,8 +32,8 @@ class Camera:
     p1: jnp.ndarray
     p2: jnp.ndarray
     k3: jnp.ndarray
-    width: int = flax.struct.field(pytree_node=False, default=640)
-    height: int = flax.struct.field(pytree_node=False, default=480)
+    width: int = struct.field(static=True, default=640)
+    height: int = struct.field(static=True, default=480)
 
     @classmethod
     def create(cls, fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0,

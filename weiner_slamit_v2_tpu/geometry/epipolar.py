@@ -1,6 +1,6 @@
 """Epipolar geometry helpers: F/E from relative poses, epipolar distances.
 
-TPU-native replacement for ``LocalMapping::ComputeF12``
+JAX replacement for ``LocalMapping::ComputeF12``
 (jni/ORB_SLAM2/src/LocalMapping.cc:590-607) and
 ``ORBmatcher::CheckDistEpipolarLine`` (jni/ORB_SLAM2/src/ORBmatcher.cc:142-159).
 """

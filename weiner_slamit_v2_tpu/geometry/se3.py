@@ -1,6 +1,6 @@
 """SE(3) rigid-transform operations in tangent space.
 
-TPU-native replacement for the reference's mixture of ``cv::Mat`` 4x4 pose
+JAX replacement for the reference's mixture of ``cv::Mat`` 4x4 pose
 matrices and g2o ``SE3Quat`` (reference: jni/ORB_SLAM2/src/Converter.cc:37-109,
 jni/Thirdparty/g2o/g2o/types/se3quat.h). All ops are pure jnp, broadcast over
 leading batch dimensions, and are safe under ``jax.jit``/``vmap``/``grad``.

@@ -1,6 +1,6 @@
 """Sim(3) similarity-transform operations in tangent space.
 
-TPU-native replacement for g2o's ``Sim3`` type used by the reference for loop
+JAX replacement for g2o's ``Sim3`` type used by the reference for loop
 closing (jni/Thirdparty/g2o/g2o/types/sim3.h, used by
 jni/ORB_SLAM2/src/Optimizer.cc:781-1044 and src/Sim3Solver.cc).
 

@@ -1,13 +1,13 @@
 """Batched two-view triangulation (inhomogeneous DLT, closed form).
 
-TPU-native replacement for ``Initializer::Triangulate``
+JAX replacement for ``Initializer::Triangulate``
 (jni/ORB_SLAM2/src/Initializer.cc:743-805) and the SVD triangulation inside
 ``LocalMapping::CreateNewMapPoints`` (jni/ORB_SLAM2/src/LocalMapping.cc:221-505).
 The reference solves the homogeneous 4x4 DLT with cv::SVD per
-correspondence; batched small SVDs lower to slow iterative loops on TPU, so
-here the homogeneous coordinate is fixed to 1 and the 4x3 least-squares
-system is solved with closed-form 3x3 normal equations — branch-free VPU
-arithmetic. The two solutions differ only for points near infinity, which
+correspondence; here the homogeneous coordinate is fixed to 1 and the 4x3
+least-squares system is solved with closed-form 3x3 normal equations —
+branch-free elementwise arithmetic over the whole batch instead of
+iterative small SVDs. The two solutions differ only for points near infinity, which
 the downstream cheirality/parallax/chi2 gates reject in either case.
 """
 

@@ -1,6 +1,6 @@
-"""PoseNet-style human keypoint head (parity feature, flax).
+"""PoseNet-style human keypoint head (parity feature).
 
-TPU-native replacement for the reference's TFLite PoseNet integration
+Replaces the reference's TFLite PoseNet integration
 (jni/ORB_SLAM2/src/Posenet.cc — a C-API reimplementation of the Kotlin
 PoseNet library, run on every monocular frame at Frame ctor time,
 src/Frame.cc:222-232). Same interface contract:
@@ -15,13 +15,16 @@ The reference loads pretrained MobileNet weights from posenet_model.tflite —
 a file that does not ship with the repo and cannot be fetched here, so this
 module provides the architecture + decoder with random initialization; any
 MobileNetV1-PoseNet checkpoint can be loaded into `params` once available.
+
+The network is plain ``lax`` convolutions over a nested params dict
+``{"params": {"Conv_0": {"kernel", "bias"}, "_DepthwiseSeparable_0":
+{"Conv_0", "Conv_1"}, ...}}`` (kernels HWIO, activations NHWC).
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -36,48 +39,83 @@ BODY_PARTS = (
     "RIGHT_KNEE", "LEFT_ANKLE", "RIGHT_ANKLE",
 )  # include/Posenet.h:15-35 (BodyPart enum order)
 
-
-class _DepthwiseSeparable(nn.Module):
-    features: int
-    stride: int = 1
-
-    @nn.compact
-    def __call__(self, x):
-        ch = x.shape[-1]
-        x = nn.Conv(
-            ch, (3, 3), strides=(self.stride, self.stride),
-            feature_group_count=ch, padding="SAME",
-        )(x)
-        x = nn.relu(x)
-        x = nn.Conv(self.features, (1, 1))(x)
-        return nn.relu(x)
+STEM_FEATURES = 24
+# (features, stride) of the depthwise-separable blocks; the last stride-2
+# block reaches 9x9 at input 257
+BLOCKS = (
+    (48, 2), (96, 2), (96, 1), (192, 2), (192, 1), (384, 1), (384, 2),
+)
+HEADS = (N_KEYPOINTS, 2 * N_KEYPOINTS, 32, 32)  # heatmaps, offsets, fwd, bwd
 
 
-class PoseNet(nn.Module):
+def _conv(p, x, stride=1, groups=1):
+    y = jax.lax.conv_general_dilated(
+        x, p["kernel"], (stride, stride), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        feature_group_count=groups,
+    )
+    return y + p["bias"]
+
+
+class PoseNet:
     """MobileNetV1-0.75-ish backbone + the four PoseNet heads."""
 
-    @nn.compact
-    def __call__(self, x):
-        # x: (B, 257, 257, 3) in [-1, 1]
-        x = nn.relu(nn.Conv(24, (3, 3), strides=(2, 2), padding="SAME")(x))
-        for feats, stride in [
-            (48, 2), (96, 2), (96, 1), (192, 2), (192, 1), (384, 1),
-        ]:
-            x = _DepthwiseSeparable(feats, stride)(x)
-        # final stride-2 to reach 9x9 at input 257
-        x = _DepthwiseSeparable(384, 2)(x)
-
-        heatmaps = nn.Conv(N_KEYPOINTS, (1, 1))(x)            # (B, 9, 9, 17)
-        offsets = nn.Conv(2 * N_KEYPOINTS, (1, 1))(x)         # (B, 9, 9, 34)
-        disp_fwd = nn.Conv(32, (1, 1))(x)
-        disp_bwd = nn.Conv(32, (1, 1))(x)
-        return heatmaps, offsets, disp_fwd, disp_bwd
+    def apply(self, params: Any, x: jnp.ndarray):
+        """x: (B, 257, 257, 3) in [-1, 1] -> (heatmaps, offsets, disp_fwd,
+        disp_bwd), each (B, 9, 9, C)."""
+        p = params["params"]
+        x = jax.nn.relu(_conv(p["Conv_0"], x, stride=2))
+        for i, (_, stride) in enumerate(BLOCKS):
+            b = p[f"_DepthwiseSeparable_{i}"]
+            x = jax.nn.relu(
+                _conv(b["Conv_0"], x, stride=stride, groups=x.shape[-1])
+            )
+            x = jax.nn.relu(_conv(b["Conv_1"], x))
+        return tuple(_conv(p[f"Conv_{1 + h}"], x) for h in range(len(HEADS)))
 
 
 def init_params(key: jnp.ndarray) -> Any:
-    model = PoseNet()
-    x = jnp.zeros((1, INPUT_SIZE, INPUT_SIZE, 3))
-    return model.init(key, x)
+    """Random params: LeCun-normal kernels, zero biases."""
+    init = jax.nn.initializers.lecun_normal()
+    keys = iter(jax.random.split(key, 1 + 2 * len(BLOCKS) + len(HEADS)))
+
+    def conv(kh, cin, cout):
+        return {
+            "kernel": init(next(keys), (kh, kh, cin, cout), jnp.float32),
+            "bias": jnp.zeros((cout,), jnp.float32),
+        }
+
+    p = {"Conv_0": conv(3, 3, STEM_FEATURES)}
+    ch = STEM_FEATURES
+    for i, (feats, _) in enumerate(BLOCKS):
+        p[f"_DepthwiseSeparable_{i}"] = {
+            "Conv_0": conv(3, 1, ch), "Conv_1": conv(1, ch, feats),
+        }
+        ch = feats
+    for h, feats in enumerate(HEADS):
+        p[f"Conv_{1 + h}"] = conv(1, ch, feats)
+    return {"params": p}
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
 
 
 def save_params(path: str, params: Any) -> None:
@@ -85,9 +123,8 @@ def save_params(path: str, params: Any) -> None:
     counterpart of the reference's posenet_model.tflite artifact
     (src/Posenet.cc:30-42) in this framework's native format."""
     import numpy as np
-    from flax.traverse_util import flatten_dict
 
-    flat = flatten_dict(params, sep="/")
+    flat = _flatten(params)
     np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
 
 
@@ -96,11 +133,10 @@ def load_params(path: str) -> Any:
     checkpoint exported to the same layout). Validates against the
     architecture's shapes so a wrong file fails loudly at load time."""
     import numpy as np
-    from flax.traverse_util import unflatten_dict
 
     with np.load(path) as z:
-        flat = {tuple(k.split("/")): jnp.asarray(z[k]) for k in z.files}
-    params = unflatten_dict(flat)
+        flat = {k: jnp.asarray(z[k]) for k in z.files}
+    params = _unflatten(flat)
     ref = jax.eval_shape(lambda: init_params(jax.random.PRNGKey(0)))
     ref_flat = jax.tree_util.tree_leaves_with_path(ref)
     got_flat = jax.tree_util.tree_leaves_with_path(params)
@@ -110,10 +146,11 @@ def load_params(path: str) -> Any:
             f"expected {len(ref_flat)}"
         )
     for (kp_r, leaf_r), (kp_g, leaf_g) in zip(ref_flat, got_flat):
-        if leaf_r.shape != leaf_g.shape:
+        if kp_r != kp_g or leaf_r.shape != leaf_g.shape:
             raise ValueError(
                 f"posenet param {jax.tree_util.keystr(kp_g)}: shape "
-                f"{leaf_g.shape}, expected {leaf_r.shape}"
+                f"{leaf_g.shape}, expected {jax.tree_util.keystr(kp_r)} "
+                f"{leaf_r.shape}"
             )
     return params
 

@@ -1,12 +1,13 @@
 """Native (C++) host-side runtime components, loaded via ctypes.
 
-The reference's runtime is entirely native (NDK C++ — SURVEY.md §2.1); the
-TPU framework keeps its *device* path in JAX/XLA and implements the genuinely
+The reference's runtime is entirely native (NDK C++ — SURVEY.md §2.1); this
+framework keeps its *device* path in JAX/XLA and implements the genuinely
 host-bound runtime pieces in C++: the DBoW2 vocabulary text parser (~1M-line
 files) and the dataset image decoder (PNG/PGM). Both degrade gracefully to
-Python fallbacks when the shared library has not been built.
+Python fallbacks when the shared library cannot be built.
 
-Build (done automatically on first use):
+The library is not committed: it is built from the sources here on first
+use (needs g++ and zlib), into this directory:
     g++ -O2 -shared -fPIC -o libwsnative.so voc_loader.cpp image_io.cpp -lz
 """
 
@@ -40,11 +41,17 @@ class _VocData(ctypes.Structure):
 
 def _build() -> bool:
     sources = [os.path.join(_DIR, "voc_loader.cpp"), os.path.join(_DIR, "image_io.cpp")]
-    cmd = ["g++", "-O2", "-shared", "-fPIC", "-o", _LIB_PATH, *sources, "-lz"]
+    # build under a private name, then rename: concurrent processes never
+    # load a half-written library
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, *sources, "-lz"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB_PATH)
         return True
     except Exception:
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
 
 

@@ -1,6 +1,6 @@
 // Minimal grayscale PNG/PGM decoder (C ABI, zlib inflate + unfiltering).
 //
-// Host-side native dataset I/O for the TPU framework — the counterpart of
+// Host-side native dataset I/O for this framework — the counterpart of
 // the reference's OpenCV imread path in dataset mode
 // (java/orb/slam2/android/ORBSLAMForDataSetActivity.java:120-160 feeding
 // pixel buffers through JNI). Supports the formats TUM/KITTI/EuRoC ship:

@@ -1,6 +1,6 @@
 // Fast DBoW2 text-vocabulary parser (C ABI, loaded via ctypes).
 //
-// TPU-native framework's host-side native runtime component replacing the
+// Host-side native runtime component of this framework, replacing the
 // reference's DBoW2 loadFromTextFile
 // (jni/Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h:1345-1440), which the
 // reference notes "could take a while" on the ~1.08M-line ORBvoc.txt

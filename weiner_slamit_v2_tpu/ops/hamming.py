@@ -1,9 +1,9 @@
 """Hamming distance on packed 256-bit descriptors (XOR + popcount).
 
-TPU-native replacement for ``ORBmatcher::DescriptorDistance``
+JAX replacement for ``ORBmatcher::DescriptorDistance``
 (jni/ORB_SLAM2/src/ORBmatcher.cc:1651-1667, the classic parallel-bit-count).
-XLA's ``population_count`` lowers to the VPU; the full N1 x N2 distance
-matrix is one fused elementwise+reduce program, which replaces every scalar
+With XLA's ``population_count`` the full N1 x N2 distance matrix is one
+fused elementwise+reduce program, which replaces every scalar
 brute-force loop in the reference matcher.
 """
 
@@ -48,9 +48,8 @@ def masked_distance_matrix(
 def _packed_min(dist: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """(argmin, min) along axis 1 via a single packed min-reduction.
 
-    ``jnp.argmin``/``top_k`` lower to slow variadic sorts/reduces on TPU
-    (~10-200x slower than a plain min); packing ``value * n + index`` into one
-    int32 makes the row reduction a single fast VPU min. Distances are
+    Packing ``value * n + index`` into one int32 makes the row reduction a
+    single plain min instead of a variadic (value, index) reduce. Distances are
     bounded by INVALID_DIST (10_000), so value*n+idx < 2^31 for n up to 2^17.
     Ties break toward the smaller column index, same as argmin/top_k.
     """

@@ -1,11 +1,11 @@
 """Keypoint orientation + rotated BRIEF-256 descriptors as batched matmuls.
 
-TPU-native replacement for ``IC_Angle`` (intensity-centroid orientation,
+JAX replacement for ``IC_Angle`` (intensity-centroid orientation,
 jni/ORB_SLAM2/src/ORBextractor.cc:82-109) and ``computeOrbDescriptor``
 (rotated 256-pair comparisons, ORBextractor.cc:113-152). The reference walks
 patch pixels in scalar loops per keypoint; here all keypoints of a level are
 processed at once through the row-gather + one-hot-matmul patch machinery in
-ops/patches.py (35x faster on TPU than the naive 2-D gather), and the
+ops/patches.py, and the
 rotated BRIEF samples are read from the already-extracted (31, 31) patch —
 the full image is touched exactly once per keypoint.
 """

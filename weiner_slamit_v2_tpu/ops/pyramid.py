@@ -1,6 +1,6 @@
 """Image pyramid + Gaussian blur as XLA array ops.
 
-TPU-native replacement for ``ORBextractor::ComputePyramid``
+JAX replacement for ``ORBextractor::ComputePyramid``
 (jni/ORB_SLAM2/src/ORBextractor.cc:1138-1168 — per-level ``cv::resize``
 bilinear chain) and the 7x7 sigma=2 Gaussian blur applied before descriptor
 extraction (jni/ORB_SLAM2/src/ORBextractor.cc:1117).

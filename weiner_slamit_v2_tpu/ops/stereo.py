@@ -1,6 +1,6 @@
 """Rectified stereo matching: row-banded Hamming search + SAD subpixel.
 
-TPU-native replacement for ``Frame::ComputeStereoMatches``
+JAX replacement for ``Frame::ComputeStereoMatches``
 (jni/ORB_SLAM2/src/Frame.cc:591-763): the reference builds per-row candidate
 tables and searches each left keypoint serially (Hamming best in a row band,
 then an 11-px SAD slide with parabola subpixel refinement). Here the whole

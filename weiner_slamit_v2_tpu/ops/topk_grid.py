@@ -1,10 +1,10 @@
 """Spatially-uniform keypoint selection: per-cell top-k + budgeted global pick.
 
-TPU-native replacement for ``ORBextractor::DistributeOctTree``
+JAX replacement for ``ORBextractor::DistributeOctTree``
 (jni/ORB_SLAM2/src/ORBextractor.cc:494-776). The reference builds a sequential
 quadtree that splits nodes until there are ~nfeatures of them, keeping the
-best-response corner per node — a pointer-chasing loop that cannot map to the
-MXU/VPU. The array-parallel equivalent of its spatial-uniformity goal:
+best-response corner per node — a pointer-chasing loop with no dense array
+form. The array-parallel equivalent of its spatial-uniformity goal:
 
 1. partition the image into fixed cells;
 2. take the top-k responses per cell (vectorized ``top_k`` over cells);

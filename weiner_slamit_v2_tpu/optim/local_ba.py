@@ -1,20 +1,20 @@
 """Bundle adjustment: Levenberg–Marquardt with blocked Schur complement.
 
-TPU-native replacement for g2o-based ``Optimizer::LocalBundleAdjustment`` /
+JAX replacement for g2o-based ``Optimizer::LocalBundleAdjustment`` /
 ``BundleAdjustment`` (jni/ORB_SLAM2/src/Optimizer.cc:453-778, :49-237). The
 reference builds a sparse graph and factorizes with Eigen sparse Cholesky;
-here the solver exploits the classic SfM structure with layouts chosen for
-the TPU's units (PLATFORM.md §2: no random gathers, no batched tiny matmuls):
+here the solver exploits the classic SfM structure with dense layouts (no
+random gathers, no batched tiny matmuls):
 
   * every per-observation quantity (residuals, the 6 camera-Jacobian rows,
     the 3 point-Jacobian rows per residual row) is a flat (N_obs,) plane —
-    pure VPU elementwise work;
+    pure elementwise work;
   * the per-observation camera pose "gather" is a one-hot (N_obs, C) @
-    (C, 12) matmul (35x faster than a random gather at these sizes);
+    (C, 12) matmul;
   * point blocks Hpp are 3x3 closed-form inverses from summed planes;
   * the cross term is assembled once as U = Hcp in (6C, 3P) matmul layout,
-    so the reduced camera system S = Hcc - U Hpp^-1 U^T is ONE well-tiled
-    (6C, 3P) @ (3P, 6C) MXU contraction instead of an einsum of tiny blocks;
+    so the reduced camera system S = Hcc - U Hpp^-1 U^T is ONE
+    (6C, 3P) @ (3P, 6C) contraction instead of an einsum of tiny blocks;
   * the 6Cx6C solve is a small dense Cholesky.
 
 The observation layout is point-major (P, O): each point carries up to O
@@ -22,18 +22,18 @@ observations (cam slot, uv, information) — the array form of
 MapPoint::mObservations. The same kernels serve local BA (fixed boundary
 cams — Optimizer.cc:504-521), global BA (gauge fixed at kf0), and the
 distributed variant (parallel/sharded_ba.py shards the point planes and
-psums the reduced system over ICI).
+psums the reduced system across devices).
 """
 
 from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from ..geometry import se3
+from ..utils import struct
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815  # 3-dof 95% gate (EdgeStereoSE3ProjectXYZ, Optimizer.cc:295)
@@ -41,7 +41,7 @@ HUBER2 = 5.991  # Huber delta^2 (delta = sqrt(5.991), Optimizer.cc:536)
 BA_LAMBDA_INIT = 1e-4  # LM damping seed (both phases; solve_ba/chunked alike)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class BAProblem:
     """A fixed-shape bundle-adjustment problem extracted from the map."""
 
@@ -63,7 +63,7 @@ class BAProblem:
     bf: jnp.ndarray | None = None            # () baseline * fx
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class BAResult:
     cam_pose: jnp.ndarray      # (C, 4, 4) optimized
     points: jnp.ndarray        # (P, 3) optimized
@@ -72,8 +72,7 @@ class BAResult:
 
 
 def _pose_rows_by_obs(cam_pose, obs_cam, C):
-    """(N,12) per-observation [R row-major | t] via one-hot matmul (the
-    random-gather killer — PLATFORM.md §2)."""
+    """(N,12) per-observation [R row-major | t] via one-hot matmul."""
     N = obs_cam.size
     cam = jnp.maximum(obs_cam, 0).reshape(N)
     onehot = (cam[:, None] == jnp.arange(C)[None, :]).astype(jnp.float32)
@@ -217,7 +216,7 @@ def _per_obs_chi2_th(prob, chi2_mono=CHI2_MONO, chi2_stereo=CHI2_STEREO):
 
 def build_normal_equations(cam_pose, points, K, obs_cam, obs_uv, w, C,
                            obs_ur=None, obs_has_ur=None, bf=None):
-    """Accumulate the BA normal equations in MXU-friendly layouts.
+    """Accumulate the BA normal equations in matmul layouts.
 
     w: (P, O) final per-observation weights (information x robust x masks).
     Returns Hcc (C,6,6), bc (C,6), Hpp (P,3,3), bp (P,3), U (6C, 3P) — the
@@ -281,8 +280,8 @@ def build_normal_equations(cam_pose, points, K, obs_cam, obs_uv, w, C,
     bp = jnp.stack([-psum(prhs(a)) for a in range(3)], axis=-1)
 
     # ---- camera blocks: one-hot matmul reduction per camera ---------------
-    # (a (C, N) @ (N, 36) MXU contraction — scatter-add over N duplicate
-    # camera indices serializes on TPU and cost ~8 ms at these sizes)
+    # (a (C, N) @ (N, 36) contraction instead of a scatter-add over N
+    # duplicate camera indices)
     onehot = (
         jnp.maximum(obs_cam, 0).reshape(N)[:, None]
         == jnp.arange(C, dtype=jnp.int32)[None, :]
@@ -307,8 +306,7 @@ def build_normal_equations(cam_pose, points, K, obs_cam, obs_uv, w, C,
         axis=-2,
     )  # (N, 6, 3)
     # U[c, p] = sum over point p's observations with camera c — a per-point
-    # contraction over the O axis (einsum beats the (cam, p) scatter-add
-    # ~2x at these sizes on TPU; measured in tools/profile_ba.py)
+    # contraction over the O axis instead of a (cam, p) scatter-add
     U5 = jnp.einsum(
         "poc,pox->pcx", onehot.reshape(P, O, C), finite(G).reshape(P, O, 18)
     )

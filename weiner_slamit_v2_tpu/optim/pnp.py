@@ -1,6 +1,6 @@
 """RANSAC PnP for relocalization: vmapped minimal solves + inlier voting.
 
-TPU-native replacement for ``PnPsolver`` (jni/ORB_SLAM2/src/PnPsolver.cc):
+JAX replacement for ``PnPsolver`` (jni/ORB_SLAM2/src/PnPsolver.cc):
 the reference iterates EPnP on 4-point sets with scalar linear algebra
 (control points, betas, Gauss-Newton — PnPsolver.cc:383-867). Here every
 RANSAC hypothesis is solved at once with a vmapped 6-point DLT

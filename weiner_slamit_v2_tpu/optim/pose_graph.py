@@ -1,6 +1,6 @@
 """Essential-graph optimization: Gauss-Newton over Sim3 keyframe poses.
 
-TPU-native replacement for ``Optimizer::OptimizeEssentialGraph``
+JAX replacement for ``Optimizer::OptimizeEssentialGraph``
 (jni/ORB_SLAM2/src/Optimizer.cc:781-1044): the reference builds a g2o graph
 with Sim3 vertices (BlockSolver_7_3, lambda 1e-16, 20 iterations) over
 spanning-tree + covisibility(>=100) + loop edges. Here:
@@ -9,13 +9,13 @@ spanning-tree + covisibility(>=100) + loop edges. Here:
   vmapped batch, with Jacobians from jax.jacfwd in the tangent space
   (replacing g2o's numeric/analytic edge jacobians);
 * the normal equations are solved either dense over 7K variables (K = keyframe
-  capacity, <= a few hundred -> a small dense Cholesky on the MXU) or — for
+  capacity, <= a few hundred -> a small dense Cholesky) or — for
   large maps — by block-Jacobi-preconditioned conjugate gradient on the
   *block-sparse* system: H·x products are evaluated straight from the per-edge
   (7,7) blocks with two gathers and two scatter-adds, so memory stays
   O(E·49 + K·49) instead of O((7K)^2) and K=1024+ keyframes are tractable
-  (the reference's g2o uses sparse Cholesky; CG over ICI-friendly
-  gather/scatter is the TPU-native equivalent). solver="auto" picks dense
+  (the reference's g2o uses sparse Cholesky; CG over gathers and
+  scatter-adds is the array equivalent). solver="auto" picks dense
   below 320 keyframes, PCG above;
 * fixed gauge: the loop keyframe (Optimizer.cc:840).
 
@@ -66,7 +66,8 @@ def _solve_pcg(
 
     Never materializes H: the matvec gathers x at each edge's endpoints,
     applies the cached (7,7) blocks, and scatter-adds — the same access
-    pattern a sharded solver would psum over ICI (parallel/sharded_ba.py).
+    pattern a sharded solver would psum across devices
+    (parallel/sharded_ba.py).
     """
     K = D.shape[0]
     Ho = Hij * off_ok[:, None, None]

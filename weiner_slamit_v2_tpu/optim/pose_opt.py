@@ -1,16 +1,15 @@
 """Motion-only pose optimization: Levenberg–Marquardt on SE(3).
 
-TPU-native replacement for ``Optimizer::PoseOptimization``
+JAX replacement for ``Optimizer::PoseOptimization``
 (jni/ORB_SLAM2/src/Optimizer.cc:239-451): the reference builds a g2o graph
 with one SE3 vertex and N monocular projection edges, runs 4 rounds x 10 LM
 iterations with Huber (delta = sqrt(5.991)) and reclassifies inliers by chi2
 between rounds, dropping the robust kernel for the final rounds.
 
-Here the whole solve is one jit program. Layout matters on TPU: residuals and
-Jacobians are kept as struct-of-arrays — the Jacobian is two (6, N) row
-blocks, never an (N, 2, 6) array of per-point matrices, because batched tiny
-matmuls lower to thousands of individual MXU ops while (6, N) @ (N, 6) is a
-single well-tiled contraction. The 6x6 normal system is solved by an
+Here the whole solve is one jit program. Residuals and Jacobians are kept
+as struct-of-arrays — the Jacobian is two (6, N) row blocks, never an
+(N, 2, 6) array of per-point matrices, so the normal equations are one
+(6, N) @ (N, 6) contraction instead of a batch of tiny matmuls. The 6x6 normal system is solved by an
 *unrolled* Cholesky (static scalar graph) instead of ``jnp.linalg.solve``,
 whose LU pivoting lowers to XLA while-loops that both compile slowly and run
 slowly inside the LM loop.

@@ -1,6 +1,6 @@
 """Sim3 estimation from 3D-3D correspondences: Horn's method + RANSAC.
 
-TPU-native replacement for ``Sim3Solver`` (jni/ORB_SLAM2/src/Sim3Solver.cc):
+JAX replacement for ``Sim3Solver`` (jni/ORB_SLAM2/src/Sim3Solver.cc):
 the reference iterates 3-point RANSAC with scalar Horn solves
 (Sim3Solver.cc:226-337, the 1987 closed form: centroids, M = Pr1 Pr2^T, 4x4
 N-matrix eigendecomposition -> quaternion, scale from projections). Here all

@@ -1,11 +1,11 @@
 """Multi-host execution: jax.distributed initialization + global meshes.
 
 The reference has no distributed story at all — one Linux process with
-mutexes (SURVEY.md §5 "distributed communication backend"). The TPU-native
-equivalent: every host process calls :func:`initialize`, after which
-``jax.devices()`` spans the whole slice and the same ``shard_map`` programs
-(parallel/sharded_ba.py) run over a global mesh — intra-slice collectives
-ride ICI, cross-slice DCN, with no code changes to the solvers.
+mutexes (SURVEY.md §5 "distributed communication backend"). Here every
+host process calls :func:`initialize`, after which ``jax.devices()`` spans
+every process's devices and the same ``shard_map`` programs
+(parallel/sharded_ba.py) run over a global mesh, with no code changes to the
+solvers.
 
 Tested with multiple CPU processes on one machine
 (tests/test_parallel.py::TestMultiHost): each process gets
@@ -29,9 +29,9 @@ def initialize(
     """Join the multi-host runtime (jax.distributed.initialize).
 
     With no arguments, reads the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or the
-    TPU pod metadata when running on real pods (where all three are
-    auto-detected and may be omitted entirely).
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); where
+    they are unset, jax.distributed.initialize must find them from a
+    cluster environment it knows, or it fails.
     """
     kwargs = {}
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")

@@ -1,10 +1,10 @@
 """Covisibility graph & local-window queries as dense matrix ops.
 
-TPU-native replacement for ``KeyFrame::UpdateConnections`` and friends
+JAX replacement for ``KeyFrame::UpdateConnections`` and friends
 (jni/ORB_SLAM2/src/KeyFrame.cc:296-386): the reference maintains mutable
 adjacency maps per keyframe under mutexes; here the covisibility weight
 matrix is *derived* on demand from the observation relation with one
-indicator matmul (MXU work), so it can never be stale and needs no locks.
+indicator matmul, so it can never be stale and needs no locks.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Batched map-point statistics: distinctive descriptor, normal, scale band.
 
-TPU-native replacement for ``MapPoint::ComputeDistinctiveDescriptors``
+JAX replacement for ``MapPoint::ComputeDistinctiveDescriptors``
 (jni/ORB_SLAM2/src/MapPoint.cc:248-313 — min-median-Hamming descriptor
 election among observations) and ``MapPoint::UpdateNormalAndDepth``
 (src/MapPoint.cc:336-377 — mean viewing ray + scale-invariance distance
@@ -95,8 +95,7 @@ def refresh_point_stats_touched(
     """refresh_point_stats restricted to a compacted subset of points.
 
     The full refresh gathers every point's observation descriptors
-    ((M, O, 8) random 2-D gathers — the catastrophic pattern of
-    PLATFORM.md §2) and sorts an (M, O, O) Hamming cube; a mapping pass
+    ((M, O, 8) random 2-D gathers) and sorts an (M, O, O) Hamming cube; a mapping pass
     only perturbs the points observed by the new keyframe and its fuse
     targets (<= a few thousand), so the work here is gathered down to the
     top-`cap` touched points and scattered back — ~4x less traffic at the

@@ -1,6 +1,6 @@
 """The map as structure-of-arrays: keyframes, map points, observations.
 
-TPU-native replacement for the reference's pointer-graph data model —
+JAX replacement for the reference's pointer-graph data model —
 ``KeyFrame`` (jni/ORB_SLAM2/src/KeyFrame.cc), ``MapPoint``
 (src/MapPoint.cc), ``Map`` (src/Map.cc) — which is a web of heap objects,
 std::maps and per-object mutexes. Here the whole map is one immutable pytree
@@ -20,14 +20,14 @@ Conventions:
 
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from ..config import MapCapacityConfig
+from ..utils import struct
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class SlamMap:
     # --- keyframes -------------------------------------------------------
     kf_pose: jnp.ndarray       # (K, 4, 4) f32 world->camera

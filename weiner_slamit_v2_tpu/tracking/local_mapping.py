@@ -1,6 +1,6 @@
 """Local mapping: triangulate new points, cull, fuse, local BA.
 
-TPU-native replacement for the ``LocalMapping`` thread
+JAX replacement for the ``LocalMapping`` thread
 (jni/ORB_SLAM2/src/LocalMapping.cc). The reference runs an infinite polling
 loop with per-keyframe scalar work; here each responsibility is a batched
 array pass over the map, invoked synchronously per new keyframe by the
@@ -269,24 +269,15 @@ def _fuse_points_into_kf(
 
     # pairwise gates: window 3*scale(predicted level) (ORBmatcher.cc:868),
     # level in [pred-1, pred], chi2 5.99 * sigma2(feature octave)
-    xy = m.kf_xy[dst]
-    du = xy[None, :, 0] - u[:, None]
-    dv = xy[None, :, 1] - v[:, None]
-    win = window_mult * scale_factors[jnp.clip(pred_oct, 0, L - 1)]
-    in_win = (jnp.abs(du) < win[:, None]) & (jnp.abs(dv) < win[:, None])
     octf = m.kf_octave[dst]
-    lvl_ok = (octf[None, :] >= (pred_oct - 1)[:, None]) & (
-        octf[None, :] <= pred_oct[:, None]
+    fidx, best, _ = matcher.windowed_best2(
+        m.mp_desc[pid], m.kf_desc[dst], p_ok, m.kf_feat_valid[dst],
+        pred_xy=jnp.stack([u, v], axis=1), xy2=m.kf_xy[dst],
+        window=window_mult * scale_factors[jnp.clip(pred_oct, 0, L - 1)],
+        oct_lo=pred_oct - 1, oct_hi=pred_oct, octave2=octf,
+        chi2_w=inv_sigma2_by_oct[jnp.clip(octf, 0, L - 1)],
+        chi2_th=cfg.mapping.chi2_mono,
     )
-    chi2 = (du * du + dv * dv) * inv_sigma2_by_oct[
-        jnp.clip(octf, 0, L - 1)
-    ][None, :]
-    pair = in_win & lvl_ok & (chi2 <= cfg.mapping.chi2_mono)
-
-    dist = hamming.masked_distance_matrix(
-        m.mp_desc[pid], m.kf_desc[dst], p_ok, m.kf_feat_valid[dst], pair
-    )
-    fidx, best, _ = hamming.best_and_second(dist)
     ok = (best <= cfg.matcher.th_low) & p_ok
     ok = ok & matcher._column_unique_best(fidx, best, ok, m.n_feat)
 
@@ -379,37 +370,13 @@ def _fuse_match_in_kf(
     xy = m.kf_xy[dst]
     octf = m.kf_octave[dst]
     win = window_mult * scale_factors[jnp.clip(pred_oct, 0, L - 1)]
-    if matcher._pallas_matcher_enabled():
-        # fused VMEM tile matcher: distances + window/level/chi2 gates
-        # computed on-chip, no (S, N) planes through HBM
-        # (ops/match_pallas.py — the worst roofline gap, PLATFORM.md §5)
-        from ..ops.match_pallas import windowed_best2_pallas
-
-        chi2_w = inv_sigma2_by_oct[jnp.clip(octf, 0, L - 1)]
-        fidx, best, _ = windowed_best2_pallas(
-            m.mp_desc[pid], m.kf_desc[dst], p_ok, m.kf_feat_valid[dst],
-            pred_xy=jnp.stack([u, v], axis=1), xy2=xy, window=win,
-            oct_lo=pred_oct - 1, oct_hi=pred_oct, octave2=octf,
-            chi2_w=chi2_w, chi2_th=float(cfg.mapping.chi2_mono),
-        )
-    else:
-        du = xy[None, :, 0] - u[:, None]
-        dv = xy[None, :, 1] - v[:, None]
-        in_win = (
-            (jnp.abs(du) < win[:, None]) & (jnp.abs(dv) < win[:, None])
-        )
-        lvl_ok = (octf[None, :] >= (pred_oct - 1)[:, None]) & (
-            octf[None, :] <= pred_oct[:, None]
-        )
-        chi2 = (du * du + dv * dv) * inv_sigma2_by_oct[
-            jnp.clip(octf, 0, L - 1)
-        ][None, :]
-        pair = in_win & lvl_ok & (chi2 <= cfg.mapping.chi2_mono)
-
-        dist = hamming.masked_distance_matrix(
-            m.mp_desc[pid], m.kf_desc[dst], p_ok, m.kf_feat_valid[dst], pair
-        )
-        fidx, best, _ = hamming.best_and_second(dist)
+    fidx, best, _ = matcher.windowed_best2(
+        m.mp_desc[pid], m.kf_desc[dst], p_ok, m.kf_feat_valid[dst],
+        pred_xy=jnp.stack([u, v], axis=1), xy2=xy, window=win,
+        oct_lo=pred_oct - 1, oct_hi=pred_oct, octave2=octf,
+        chi2_w=inv_sigma2_by_oct[jnp.clip(octf, 0, L - 1)],
+        chi2_th=cfg.mapping.chi2_mono,
+    )
     ok = (best <= cfg.matcher.th_low) & p_ok
     ok = ok & matcher._column_unique_best(fidx, best, ok, m.n_feat)
     return ok, jnp.maximum(fidx, 0)

@@ -1,6 +1,6 @@
 """Loop closing: detection, Sim3 estimation, fusion, pose-graph correction.
 
-TPU-native replacement for the ``LoopClosing`` thread
+JAX replacement for the ``LoopClosing`` thread
 (jni/ORB_SLAM2/src/LoopClosing.cc). Runs synchronously per keyframe (the
 pipeline analogue of the reference's 5ms polling loop):
 

@@ -61,3 +61,44 @@ def device_trace(log_dir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def device_busy(log_dir: str) -> dict[str, dict]:
+    """Per GPU plane of the newest trace under `log_dir`: busy time (union
+    of the kernel intervals on its stream lines), the span from the first
+    kernel start to the last kernel end, and the kernel count."""
+    import glob
+    import os
+
+    paths = glob.glob(
+        os.path.join(log_dir, "**", "*.xplane.pb"), recursive=True
+    )
+    if not paths:
+        raise FileNotFoundError(f"no .xplane.pb under {log_dir}")
+    data = jax.profiler.ProfileData.from_file(max(paths, key=os.path.getmtime))
+    out = {}
+    for plane in data.planes:
+        if not plane.name.startswith("/device:GPU:"):
+            continue
+        spans = sorted(
+            (e.start_ns, e.start_ns + e.duration_ns)
+            for line in plane.lines
+            if line.name.startswith("Stream")
+            for e in line.events
+        )
+        if not spans:
+            raise ValueError(
+                f"no kernels on the stream lines of {plane.name}: "
+                f"{[line.name for line in plane.lines]}"
+            )
+        busy, end = 0.0, float("-inf")
+        for s, e in spans:
+            if e > end:
+                busy += e - max(s, end)
+                end = e
+        out[plane.name] = {
+            "busy_ns": busy,
+            "span_ns": end - spans[0][0],
+            "n_kernels": len(spans),
+        }
+    return out

@@ -2,8 +2,8 @@
 
 Replaces the reference's live GLES viewer (Viewer/MapDrawer/FrameDrawer —
 jni/ORB_SLAM2/src/MapDrawer.cc:75-282 draws map points as blue/red GL_POINTS
-and keyframes as line frusta). A TPU host has no camera or screen; the
-equivalent product surface is offline plots of the same content.
+and keyframes as line frusta). An accelerator host has no camera or
+screen; the equivalent product surface is offline plots of the same content.
 """
 
 from __future__ import annotations
